@@ -1,4 +1,4 @@
-// oracle.cpp — native CPU reference kernels for fluidsimulation_tpu.
+// oracle.cpp — native CPU reference kernels for fluidsimulation.
 //
 // The reference's parity oracle is its C++ CPU solver pair
 // (Simulation2D.cpp / Simulation3D.cpp); this library is our equivalent:

@@ -5,9 +5,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.solver.step3d import step_jit
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 state = step_jit(init_state(CFG), 0.01, CFG)
@@ -17,8 +17,8 @@ np.savez_compressed(path, **out)
 print("wrote", path)
 
 # Golden rendered frame (tiny, CPU-deterministic).
-from fluidsimulation_tpu.render.camera import OrbitCamera
-from fluidsimulation_tpu.render.raytrace import render
+from fluidsimulation.render.camera import OrbitCamera
+from fluidsimulation.render.raytrace import render
 
 cam = OrbitCamera()
 co, right, up, fwd = cam.frame(48, 36)

@@ -1,8 +1,8 @@
-"""Generate the 128^3 golden step fingerprint (run on the TPU; VERDICT r1
-item 6).  Stores a compact fingerprint of the state after 2 steps at the
-north-star config: strided phi/u slices + summary stats.  The regression
-test compares loosely (cross-backend fp-reassociation tolerance: CPU runs
-the XLA op formulations, TPU the Pallas kernels)."""
+"""Generate the 128^3 golden step fingerprint (tests/test_golden128.py).
+Stores a compact fingerprint of the state after 2 steps at the north-star
+config: strided phi/u slices + summary stats.  The regression test compares
+loosely (cross-backend fp-reassociation tolerance), so the golden may come
+from an accelerator run while the test runs on the CPU."""
 import os
 import sys
 
@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.solver.step3d import step_jit
 
 CFG = SimConfig(nx=128, ny=128, nz=128, cells_per_meter=128.0,
                 particles_per_cell_axis=1)

@@ -12,20 +12,17 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
-from fluidsimulation_tpu.utils.cache import enable_compilation_cache
+from fluidsimulation.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.solver.step3d import step_jit
-from fluidsimulation_tpu.utils.profiling import MARKS, profile_step
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.solver.step3d import step_jit
+from fluidsimulation.utils.profiling import MARKS, profile_step
 
 
-def fetch(x):
-    for leaf in jax.tree.leaves(x):
-        if hasattr(leaf, "ravel"):
-            jax.device_get(leaf.ravel()[0])
+fetch = jax.block_until_ready
 
 
 def main():
@@ -61,8 +58,8 @@ def main():
 
     render_fn = None
     if do_render:
-        from fluidsimulation_tpu.render.camera import OrbitCamera
-        from fluidsimulation_tpu.render.raytrace import render
+        from fluidsimulation.render.camera import OrbitCamera
+        from fluidsimulation.render.raytrace import render
 
         co, right, up, fwd = OrbitCamera().frame(800, 600)
 

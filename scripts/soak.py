@@ -6,11 +6,11 @@ sys.path.insert(0, ".")
 import jax
 import jax.numpy as jnp
 import numpy as np
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.solver.step3d import step_jit, step_guarded
-from fluidsimulation_tpu.ops.levelset import compute_level_set
-from fluidsimulation_tpu.reference.solver3d import divergence_stats
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.solver.step3d import step_jit, step_guarded
+from fluidsimulation.ops.levelset import compute_level_set
+from fluidsimulation.reference.solver3d import divergence_stats
 
 def main(grid=64, steps=200, dt=1/60):
     cfg = SimConfig(nx=grid, ny=grid, nz=grid, cells_per_meter=float(grid),
@@ -20,7 +20,6 @@ def main(grid=64, steps=200, dt=1/60):
     for i in range(steps):
         s, ok = step_guarded(s, dt, cfg)
         if i % 50 == 0 or i == steps - 1:
-            jax.device_get(s.vel.ravel()[0])
             vmax = float(jnp.abs(s.vel).max())
             ymean = float(s.pos[:, 1].mean())
             print(f"step {i}: healthy={bool(ok)} |v|max={vmax:.3f} y_mean={ymean:.4f}")

@@ -11,16 +11,16 @@ import time
 
 sys.path.insert(0, ".")
 
-from fluidsimulation_tpu.utils.cache import enable_compilation_cache
+from fluidsimulation.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic_jit
-from fluidsimulation_tpu.solver.step3d import (
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.solver.apic import init_apic_state, step_apic_jit
+from fluidsimulation.solver.step3d import (
     clamp_dt,
     overflow_autotune,
     overflow_count,
@@ -47,7 +47,6 @@ def main(grid=128, steps=200, dt_frame=1 / 60):
                       f"{new_cfg.overflow_cap}", flush=True)
                 cfg = new_cfg
         if i % 25 == 0 or i == steps - 1:
-            jax.device_get(s.vel.ravel()[0])
             vmax = float(jnp.abs(s.vel).max())
             cmax = float(jnp.abs(s.C).max())
             ymean = float(s.pos[:, 1].mean())

@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.ops.apic import (
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.ops.apic import (
     _component_nodes,
     _quad_spline,
     g2p_apic,
@@ -148,7 +148,7 @@ def test_affine_field_roundtrips_exactly():
 @pytest.mark.slow  # round 5 fast-tier re-tier: 55 s; the 2D smoke +
 # oracle parity tests keep the fast APIC signal
 def test_step_apic_dam_break_smoke():
-    from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic_jit
+    from fluidsimulation.solver.apic import init_apic_state, step_apic_jit
 
     cfg = _cfg(16)
     s = init_apic_state(cfg)
@@ -167,7 +167,7 @@ def test_g2p_packed_matches_oracle():
     """g2p_apic_packed == g2p_apic (same math via one 9x32 row gather per
     component; edge-padded rows replicate the oracle's clamp addressing),
     on random grids INCLUDING boundary-adjacent particles."""
-    from fluidsimulation_tpu.ops.apic import g2p_apic_packed
+    from fluidsimulation.ops.apic import g2p_apic_packed
 
     cfg = _cfg(16)
     rng = np.random.default_rng(3)
@@ -190,11 +190,11 @@ def test_g2p_packed_hat_matches_interp():
     """g2p_apic_packed(with_hat=True)'s khat == the hat (trilinear) MAC
     interp at pos (core/interp_packed.py semantics) — the free RK3 stage-1
     value the APIC AdvectCache carries — incl. clamp-range positions."""
-    from fluidsimulation_tpu.core.interp_packed import (
+    from fluidsimulation.core.interp_packed import (
         interp_mac3_packed_vec,
         pack_mac3,
     )
-    from fluidsimulation_tpu.ops.apic import g2p_apic_packed
+    from fluidsimulation.ops.apic import g2p_apic_packed
 
     cfg = _cfg(16)
     rng = np.random.default_rng(7)
@@ -221,12 +221,12 @@ def test_advect_rk3_pic_consistency():
     stepper's advection) equals advect_rk3 exactly when vel is fed the
     hat interp at pos (same stages 2/3), and tracks it closely when vel
     is the spline sample instead (the real APIC case)."""
-    from fluidsimulation_tpu.core.interp_packed import (
+    from fluidsimulation.core.interp_packed import (
         interp_mac3_packed_vec,
         pack_mac3,
     )
-    from fluidsimulation_tpu.ops.advect import advect_rk3, advect_rk3_pic
-    from fluidsimulation_tpu.ops.apic import g2p_apic_packed
+    from fluidsimulation.ops.advect import advect_rk3, advect_rk3_pic
+    from fluidsimulation.ops.apic import g2p_apic_packed
 
     cfg = _cfg(16)
     rng = np.random.default_rng(9)
@@ -255,7 +255,7 @@ def test_p2g_table_matches_oracle():
     """p2g_apic_from_table == p2g_apic (dense spline windows over the
     16-field slot table + bounded overflow scatter vs direct scatter),
     same validity masks, values to fp tolerance."""
-    from fluidsimulation_tpu.ops.apic import (
+    from fluidsimulation.ops.apic import (
         build_apic_table,
         p2g_apic_from_table,
     )
@@ -285,7 +285,7 @@ def test_p2g_table_matches_oracle():
 def test_p2g_table_fused_matches_oracle():
     """The union-window fused P2G (54 windows, cell-indexed accumulators)
     matches the oracle like the unfused table form."""
-    from fluidsimulation_tpu.ops.apic import (
+    from fluidsimulation.ops.apic import (
         build_apic_table,
         p2g_apic_from_table_fused,
     )
@@ -315,13 +315,13 @@ def test_apic_table_seeding_matches_celltable():
     the level-set seeding fields (0-2 = pc, 6 = present): seeding from
     either table is bit-identical, and the fast step's phi matches the
     slow step's at the usual fast/slow tolerance."""
-    from fluidsimulation_tpu.ops.apic import build_apic_table
-    from fluidsimulation_tpu.ops.celltable import (
+    from fluidsimulation.ops.apic import build_apic_table
+    from fluidsimulation.ops.celltable import (
         build_cell_table,
         seed_closest_from_table,
         seed_overflow_correction,
     )
-    from fluidsimulation_tpu.ops.levelset import FAR
+    from fluidsimulation.ops.levelset import FAR
 
     cfg = _cfg(16)
     pos = _block_particles(cfg, lo=0.2, hi=0.8)
@@ -346,7 +346,7 @@ def test_apic_table_seeding_matches_celltable():
 def test_step_apic_fast_matches_slow():
     """One fast step vs one slow (oracle transfer + direct level set) step
     from the same state: fields agree to fast/slow tolerance."""
-    from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic
+    from fluidsimulation.solver.apic import init_apic_state, step_apic
 
     cfg = _cfg(16)
     s = init_apic_state(cfg)
@@ -365,8 +365,8 @@ def test_step_apic_fast_matches_slow():
 
 
 def test_apic_checkpoint_roundtrip(tmp_path):
-    from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic_jit
-    from fluidsimulation_tpu.utils.checkpoint import (
+    from fluidsimulation.solver.apic import init_apic_state, step_apic_jit
+    from fluidsimulation.utils.checkpoint import (
         load_apic_state,
         save_apic_state,
     )
@@ -395,8 +395,8 @@ def test_apic2d_affine_roundtrip_and_smoke():
     """2D APIC tier: affine fields round-trip exactly (interior), and the
     2D stepper runs a stable dam break (the reference's 2D stepping-stone
     methodology applied to the extension family)."""
-    from fluidsimulation_tpu.core.config import SimConfig2D
-    from fluidsimulation_tpu.solver.apic2d import (
+    from fluidsimulation.core.config import SimConfig2D
+    from fluidsimulation.solver.apic2d import (
         g2p_apic2d,
         init_apic_state2d,
         p2g_apic2d,

@@ -7,20 +7,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.ops import apic_super as asup
-from fluidsimulation_tpu.ops import levelset as ls
-from fluidsimulation_tpu.ops.apic import (
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.ops import apic_super as asup
+from fluidsimulation.ops import levelset as ls
+from fluidsimulation.ops.apic import (
     build_apic_table,
     p2g_apic,
     p2g_apic_from_table_fused,
 )
-from fluidsimulation_tpu.ops.celltable import (
+from fluidsimulation.ops.celltable import (
     seed_closest_from_table,
     seed_overflow_correction,
 )
-from fluidsimulation_tpu.ops.supertable import F, seed_closest_from_super, super_k
-from tests.test_apic import _block_particles
+from fluidsimulation.ops.supertable import F, seed_closest_from_super, super_k
+from test_apic import _block_particles
 
 
 def _cfg(n=16):
@@ -124,8 +124,8 @@ def test_step_apic_super_gate_matches_cell_path():
     """At ppc_axis=1 step_apic routes through the supercell table; it must
     agree with the per-cell fast path (gate forced off via ppc — compare
     against the slow oracle path instead, which is config-independent)."""
-    from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic
-    from fluidsimulation_tpu.solver.step3d import use_super_table
+    from fluidsimulation.solver.apic import init_apic_state, step_apic
+    from fluidsimulation.solver.step3d import use_super_table
 
     cfg = _cfg(16)
     assert use_super_table(cfg)

@@ -8,15 +8,15 @@ import sys
 import numpy as np
 import pytest
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.render.debug import (
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.render.debug import (
     checkerboard,
     splat_particles_2d,
     splat_particles_3d,
 )
-from fluidsimulation_tpu.solver.step3d import simulate, step_guarded, step_jit
-from fluidsimulation_tpu.app.demo import write_ppm
+from fluidsimulation.solver.step3d import simulate, step_guarded, step_jit
+from fluidsimulation.app.demo import write_ppm
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 
@@ -71,10 +71,10 @@ def test_write_ppm(tmp_path):
 
 def test_demo_cli(tmp_path):
     """End-to-end CLI: 3 steps at 16^3 with a rendered frame."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", FST_FORCE_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [
-            sys.executable, "-m", "fluidsimulation_tpu.app.demo",
+            sys.executable, "-m", "fluidsimulation.app.demo",
             "--grid", "16", "--steps", "3", "--render-every", "2",
             "--width", "64", "--height", "48", "--out", str(tmp_path),
             "--save-state",
@@ -93,7 +93,7 @@ def test_liveview_roundtrip():
     equivalent of the reference's interactive window."""
     import urllib.request
 
-    from fluidsimulation_tpu.app.liveview import LiveView
+    from fluidsimulation.app.liveview import LiveView
 
     lv = LiveView(port=0)  # ephemeral port
     try:

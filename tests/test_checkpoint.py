@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.solver.step3d import step_jit
-from fluidsimulation_tpu.utils import checkpoint as cp
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.solver.step3d import step_jit
+from fluidsimulation.utils import checkpoint as cp
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "step16_r1.npz")

@@ -1,6 +1,6 @@
-"""128^3 north-star-config golden fingerprint (VERDICT r1 item 6).
+"""128^3 north-star-config golden fingerprint.
 
-The golden was generated on the TPU (scripts/make_golden128.py); the CPU
+The golden was generated on an accelerator (scripts/make_golden128.py); the CPU
 suite runs the XLA op formulations instead of the Pallas kernels, so
 tolerances are cross-backend/fp-reassociation loose.  This is a SLOW test
 (two 128^3 steps on CPU, ~4 min): marked so `-m "not slow"` can skip it.
@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.solver.step3d import step_jit
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "step128_r2.npz")
 

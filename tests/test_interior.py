@@ -8,13 +8,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.render import interior as intr
-from fluidsimulation_tpu.render import raytrace as rt
-from fluidsimulation_tpu.experiments import wavefront as wf
-from fluidsimulation_tpu.render.camera import OrbitCamera
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.render import interior as intr
+from fluidsimulation.render import raytrace as rt
+from fluidsimulation.experiments import wavefront as wf
+from fluidsimulation.render.camera import OrbitCamera
+from fluidsimulation.solver.step3d import step_jit
 
 CFG32 = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
 
@@ -59,7 +59,7 @@ def test_corner_min8():
 
 
 @pytest.mark.slow  # round 5: the interior-skip march is a
-# measured-dead experiment path (docs/PERF.md); its equality soaks
+# experiment path (PERF.md); its equality soaks
 # move behind slow with it
 def test_sample_phi_skip_matches_packed(phi32):
     """phi part of the skip texture == PackedPhi sample, compared inside

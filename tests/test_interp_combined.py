@@ -9,8 +9,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.interp import interp_mac3
-from fluidsimulation_tpu.core.interp_combined import (
+from fluidsimulation.core.interp import interp_mac3
+from fluidsimulation.core.interp_combined import (
     interp_mac3_combined,
     pack_mac3_combined,
 )

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from fluidsimulation_tpu.core.config import SimConfig, SimConfig2D
-from fluidsimulation_tpu.reference import native
+from fluidsimulation.core.config import SimConfig, SimConfig2D
+from fluidsimulation.reference import native
 
 
 @pytest.mark.skipif(not native.available(), reason="liboracle.so not built")

@@ -10,17 +10,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.seeding import dam_break_particles, noise_grids
-from fluidsimulation_tpu.ops import advect as ops_advect
-from fluidsimulation_tpu.ops import binning as ops_binning
-from fluidsimulation_tpu.ops import blur as ops_blur
-from fluidsimulation_tpu.ops import extrapolate as ops_extrap
-from fluidsimulation_tpu.ops import forces as ops_forces
-from fluidsimulation_tpu.ops import levelset as ops_levelset
-from fluidsimulation_tpu.ops import p2g as ops_p2g
-from fluidsimulation_tpu.ops import project as ops_project
-from fluidsimulation_tpu.reference import solver3d, twin3d
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.seeding import dam_break_particles, noise_grids
+from fluidsimulation.ops import advect as ops_advect
+from fluidsimulation.ops import binning as ops_binning
+from fluidsimulation.ops import blur as ops_blur
+from fluidsimulation.ops import extrapolate as ops_extrap
+from fluidsimulation.ops import forces as ops_forces
+from fluidsimulation.ops import levelset as ops_levelset
+from fluidsimulation.ops import p2g as ops_p2g
+from fluidsimulation.ops import project as ops_project
+from fluidsimulation.reference import solver3d, twin3d
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 

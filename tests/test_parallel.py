@@ -6,15 +6,15 @@ import pytest
 
 import jax
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.parallel.sharding import (
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.parallel.sharding import (
     make_mesh,
     make_sharded_step,
     shard_state,
     state_shardings,
 )
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.solver.step3d import step_jit
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 
@@ -53,8 +53,8 @@ def test_output_shardings_preserved(mesh):
 def test_halo_step_matches_single(mesh):
     """The explicit-collective shard_map step (x-sharded grids, ppermute
     halos, relay x-sweeps, particle slab exchange) == single-device step
-    (VERDICT r1 #3; SURVEY.md §5.8)."""
-    from fluidsimulation_tpu.parallel.halo_step import make_halo_step, shard_state_x
+    (SURVEY.md §5.8)."""
+    from fluidsimulation.parallel.halo_step import make_halo_step, shard_state_x
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     want = init_state(cfg)
@@ -80,7 +80,7 @@ def test_halo_step_drop_counter(mesh):
     capacity: 0 at the default 4x capacity, >0 when the capacity is forced
     below the dam break's initial 2x x-concentration (the dam occupies
     half the x extent, so early shards hold ~2x the average)."""
-    from fluidsimulation_tpu.parallel.halo_step import make_halo_step, shard_state_x
+    from fluidsimulation.parallel.halo_step import make_halo_step, shard_state_x
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = shard_state_x(init_state(cfg), mesh)
@@ -106,14 +106,14 @@ def test_shard_map_halo_sor_matches_single(mesh):
     """Explicit ppermute-halo SOR == single-device SOR (SURVEY.md §5.8)."""
     import jax.numpy as jnp
 
-    from fluidsimulation_tpu.ops import levelset, project
-    from fluidsimulation_tpu.parallel.halo import sor_pressure_sharded
+    from fluidsimulation.ops import levelset, project
+    from fluidsimulation.parallel.halo import sor_pressure_sharded
 
     state = step_jit(init_state(CFG), 0.01, CFG)
     phi, _ = levelset.compute_level_set(CFG, state.pos)
     diag = project.compute_diag(CFG, phi)
     b = project.compute_rhs(CFG, state.u, state.v, state.w, jnp.float32(0.01))
-    want = project.sor_pressure(CFG, phi, diag, b, use_pallas=False)
+    want = project.sor_pressure(CFG, phi, diag, b)
     got = sor_pressure_sharded(CFG, mesh, phi, diag, b)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
 
@@ -123,11 +123,11 @@ def test_sharded_apic_step_matches_single(mesh):
     """The APIC extension family also runs GSPMD-sharded (fast=False: the
     table fast path's windowed build is single-chip; the oracle transfer
     partitions cleanly)."""
-    from fluidsimulation_tpu.parallel.sharding import (
+    from fluidsimulation.parallel.sharding import (
         make_sharded_apic_step,
         shard_apic_state,
     )
-    from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic_jit
+    from fluidsimulation.solver.apic import init_apic_state, step_apic_jit
 
     state = init_apic_state(CFG)
     want = step_apic_jit(state, 0.01, CFG, fast=False)
@@ -153,11 +153,11 @@ def test_halo_step_collective_budget(mesh):
     fails here.  The compiled-text budget of record (docs/PARALLEL.md:
     84 permute / 14 AG / 20 a2a vs GSPMD's 447 / 56+ / 347) is pinned in
     the slow companion below."""
-    from fluidsimulation_tpu.parallel.halo_step import (
+    from fluidsimulation.parallel.halo_step import (
         make_halo_step,
         shard_state_x,
     )
-    from fluidsimulation_tpu.parallel.hlo import lowered_collectives
+    from fluidsimulation.parallel.hlo import lowered_collectives
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = shard_state_x(init_state(cfg), mesh)
@@ -178,12 +178,12 @@ def test_halo_apic_collective_budget(mesh):
     all-reduces), 12 all-gathers (slab exchange carries pos/vel/C; the
     mac9 G2P pack is per-shard so it adds no gathers beyond the projected
     full grids).  Compiled-text pin in the slow companion below."""
-    from fluidsimulation_tpu.parallel.halo_apic import (
+    from fluidsimulation.parallel.halo_apic import (
         make_halo_apic_step,
         shard_apic_state_x,
     )
-    from fluidsimulation_tpu.parallel.hlo import lowered_collectives
-    from fluidsimulation_tpu.solver.apic import init_apic_state
+    from fluidsimulation.parallel.hlo import lowered_collectives
+    from fluidsimulation.solver.apic import init_apic_state
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = shard_apic_state_x(init_apic_state(cfg), mesh)
@@ -200,14 +200,14 @@ def test_halo_apic_collective_budget(mesh):
 @pytest.mark.slow
 def test_halo_step_compiled_collective_budget(mesh):
     """The compiled-HLO budget of record for the FLIP halo step
-    (docs/PARALLEL.md; VERDICT r3 item 5).  Exact-pinned on this image's
+    (docs/PARALLEL.md).  Exact-pinned on this image's
     jax; if a jax upgrade shifts counts benignly, re-baseline against
     scripts/diag_mesh_work.py."""
-    from fluidsimulation_tpu.parallel.halo_step import (
+    from fluidsimulation.parallel.halo_step import (
         make_halo_step,
         shard_state_x,
     )
-    from fluidsimulation_tpu.parallel.hlo import compiled_collectives
+    from fluidsimulation.parallel.hlo import compiled_collectives
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = shard_state_x(init_state(cfg), mesh)
@@ -225,12 +225,12 @@ def test_halo_step_compiled_collective_budget(mesh):
 def test_halo_apic_compiled_collective_budget(mesh):
     """The compiled-HLO budget of record for the APIC halo step (same
     skeleton as FLIP: 84 permutes, 0 all-reduces; 12 all-gathers)."""
-    from fluidsimulation_tpu.parallel.halo_apic import (
+    from fluidsimulation.parallel.halo_apic import (
         make_halo_apic_step,
         shard_apic_state_x,
     )
-    from fluidsimulation_tpu.parallel.hlo import compiled_collectives
-    from fluidsimulation_tpu.solver.apic import init_apic_state
+    from fluidsimulation.parallel.hlo import compiled_collectives
+    from fluidsimulation.solver.apic import init_apic_state
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = shard_apic_state_x(init_apic_state(cfg), mesh)
@@ -251,11 +251,11 @@ def test_halo_apic_step_matches_single(mesh):
     signal.)  The engineered APIC halo step (2-cell x halos for the quadratic
     windows, slab exchange carrying C, fused local-frame P2G) == the
     single-device APIC fast step to fp-reassociation tolerance."""
-    from fluidsimulation_tpu.parallel.halo_apic import (
+    from fluidsimulation.parallel.halo_apic import (
         make_halo_apic_step,
         shard_apic_state_x,
     )
-    from fluidsimulation_tpu.solver.apic import init_apic_state, step_apic_jit
+    from fluidsimulation.solver.apic import init_apic_state, step_apic_jit
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     want = init_apic_state(cfg)
@@ -291,11 +291,11 @@ def test_halo_apic_drop_counter(mesh):
     """(slow tier since round 5 — the heaviest test in the suite: forced
     tight-capacity recompiles.)  with_diagnostics reports slab-capacity
     drops (0 at the default)."""
-    from fluidsimulation_tpu.parallel.halo_apic import (
+    from fluidsimulation.parallel.halo_apic import (
         make_halo_apic_step,
         shard_apic_state_x,
     )
-    from fluidsimulation_tpu.solver.apic import init_apic_state
+    from fluidsimulation.solver.apic import init_apic_state
 
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = shard_apic_state_x(init_apic_state(cfg), mesh)

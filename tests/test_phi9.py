@@ -17,11 +17,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.render import raytrace as rt
-from fluidsimulation_tpu.render.camera import OrbitCamera
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.render import raytrace as rt
+from fluidsimulation.render.camera import OrbitCamera
+from fluidsimulation.solver.step3d import step_jit
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 
@@ -92,7 +92,7 @@ def test_spec_march_matches_serial(phi16, monkeypatch):
     monkeypatch.setattr(rt, "_SPEC", 1)
     p_ser, t_ser = rt.intersect_water(md, inv_m0, co, ci, max_t)
     np.testing.assert_array_equal(np.asarray(t_spec), np.asarray(t_ser))
-    # p: bit-identical on TPU; XLA:CPU contracts the two programs'
+    # p: bit-identical on an accelerator; XLA:CPU contracts the two programs'
     # p0 + t*ci differently (measured: one element, 1 ulp).
     np.testing.assert_allclose(
         np.asarray(p_spec), np.asarray(p_ser), atol=1e-7

@@ -5,11 +5,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.render import raytrace as rt
-from fluidsimulation_tpu.render.camera import OrbitCamera
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.render import raytrace as rt
+from fluidsimulation.render.camera import OrbitCamera
+from fluidsimulation.solver.step3d import step_jit
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 
@@ -43,8 +43,8 @@ def test_packed_phi_matches_sample_phi():
 
 def test_packed_phi_dtype_rows():
     """bf16/f16 row storage: values round once at pack time, sampling runs
-    in f32 — error bounded by one storage rounding of phi (measured DEAD
-    for perf, docs/PERF.md round 4; the plumbing stays supported)."""
+    in f32 — error bounded by one storage rounding of phi (not used by the
+    frame path; the plumbing stays supported)."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(3)
@@ -131,8 +131,8 @@ def test_render_frame_smoke():
 
 
 def test_sphere_trace_mode_matches_exact():
-    """Sphere-trace skip (deepened march texture, VERDICT r3 item 1; the
-    shipped render_frame/demo DEFAULT since round 5): the default margin's
+    """Sphere-trace skip (deepened march texture; the render_frame/demo
+    DEFAULT): the default margin's
     skips are certificate-grade (L1/sqrt3 interior distance folded into
     deep nodes, interior.deepen_phi), so the image stays bit-identical to
     the plain march on this scene.  The scale=0 degenerate-skip identity
@@ -178,10 +178,10 @@ def test_sphere_trace_scale0_matches_exact():
 
 
 def test_overstep_omega1_matches_exact():
-    """Enhanced sphere tracing on the outside march (round 4): omega=1.0
+    """Enhanced sphere tracing on the outside march: omega=1.0
     degenerates the certification chain to the plain march — bit-identical
     image; the loop-level check and the omega=1.6 bound live in the slow
-    companion below (fast-tier split, round 5)."""
+    companion below (fast-tier split)."""
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = init_state(cfg)
     for _ in range(3):
@@ -205,7 +205,7 @@ def test_overstep_loop_and_bound():
     """Drive the CERTIFIED-OVERSTEP LOOP ITSELF at omega=1.0 through
     shade() (render can't reach it at 1.0 by design), and bound the
     omega=1.6 fast mode (the recorded pixel-diff bounds live in
-    docs/PERF.md)."""
+    docs/PARITY.md)."""
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = init_state(cfg)
     for _ in range(3):
@@ -246,11 +246,10 @@ def test_overstep_loop_and_bound():
 
 
 def test_temporal_seed_huge_backoff_bitwise():
-    """Temporal frame coherence, fast-tier contract (round 5, VERDICT r4
-    item 3): a seed_back >= the grid diameter reproduces the cold march
+    """Temporal frame coherence, fast-tier contract: a seed_back >= the grid diameter reproduces the cold march
     BIT-FOR-BIT (the seeded start degenerates to t=0).  The backoff-bound
     and cross-step contracts live in the slow companion below (two render
-    compiles here vs six there — fast-tier runtime, VERDICT r4 item 7)."""
+    compiles here vs six there — fast-tier runtime)."""
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = init_state(cfg)
     for _ in range(4):
@@ -274,7 +273,7 @@ def test_temporal_seed():
     """Temporal frame coherence, full contract: (b) re-rendering the SAME
     scene with the default backoff stays within a tight pixel bound; (c)
     across real sim steps the divergence stays small and bounded (the
-    recorded bound lives in docs/PERF.md round 5); plus the untiled and
+    recorded bound lives in docs/PARITY.md); plus the untiled and
     bounces=1 plumbing.  The bit-for-bit huge-backoff contract (a) stays
     in the fast tier above."""
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
@@ -338,14 +337,13 @@ def test_escaped_bounce_child_is_miss():
 
 
 def test_coarse_seed_contract():
-    """Same-frame coarse seeding (round 5): a 1/k-res pre-pass seeds the
+    """Same-frame coarse seeding: a 1/k-res pre-pass seeds the
     full-res marches with fresh ts (render/raytrace.py coarse_seed).
     Contract: (a) seed_back >= the grid diameter reproduces the cold
     march BIT-FOR-BIT (seeded starts degenerate to t=0 — the pre-pass
     then provably cannot change the image); (b) at the default backoff
     the pixel drift stays within the seeded-re-refinement class
-    (sub-percent on this scene; recorded TPU bounds in docs/PERF.md
-    round 5)."""
+    (sub-percent on this scene; recorded bounds in docs/PARITY.md)."""
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
     state = init_state(cfg)
     for _ in range(4):

@@ -10,13 +10,13 @@ import pytest
 import jax
 import numpy as np
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.parallel.sharding import make_mesh
-from fluidsimulation_tpu.render.camera import OrbitCamera
-from fluidsimulation_tpu.render.raytrace import render
-from fluidsimulation_tpu.render.sharded import make_sharded_render
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.parallel.sharding import make_mesh
+from fluidsimulation.render.camera import OrbitCamera
+from fluidsimulation.render.raytrace import render
+from fluidsimulation.render.sharded import make_sharded_render
+from fluidsimulation.solver.step3d import step_jit
 
 
 def _scene():
@@ -64,15 +64,15 @@ def test_sharded_render_tile_padding():
 def test_sharded_render_collective_budget():
     """The tile-sharded renderer's hot path has ZERO collectives — all data
     movement is the up-front texture replication (boundary all-gathers;
-    docs/PARALLEL.md, VERDICT r3 item 5).  Pin it so a refactor cannot
+    docs/PARALLEL.md).  Pin it so a refactor cannot
     silently reintroduce per-tile communication."""
     import jax
 
-    from fluidsimulation_tpu.core.config import SimConfig
-    from fluidsimulation_tpu.core.state import init_state
-    from fluidsimulation_tpu.parallel.hlo import compiled_collectives
-    from fluidsimulation_tpu.parallel.sharding import make_mesh
-    from fluidsimulation_tpu.render.camera import OrbitCamera
+    from fluidsimulation.core.config import SimConfig
+    from fluidsimulation.core.state import init_state
+    from fluidsimulation.parallel.hlo import compiled_collectives
+    from fluidsimulation.parallel.sharding import make_mesh
+    from fluidsimulation.render.camera import OrbitCamera
 
     mesh = make_mesh(jax.devices()[:8])
     cfg = SimConfig(nx=32, ny=32, nz=32, cells_per_meter=32.0)
@@ -82,7 +82,7 @@ def test_sharded_render_collective_budget():
         make_sharded_render(mesh, 160, 120, tile_h=40, tile_w=40),
         phi, co, right, up, fwd,
     )
-    # Full budget dict pinned EXACTLY (VERDICT r4 item 8): boundary
+    # Full budget dict pinned EXACTLY: boundary
     # replication only — 3 all-gathers before the tile loop at this config
     # (6 at the full 128^3+Phi9 config), zero everything else.
     assert dict(counts) == {

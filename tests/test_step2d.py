@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from fluidsimulation_tpu.core.config import SimConfig2D
-from fluidsimulation_tpu.reference.solver2d import FluidSimRef, reset, vector_curl
-from fluidsimulation_tpu.solver.step2d import (
+from fluidsimulation.core.config import SimConfig2D
+from fluidsimulation.reference.solver2d import FluidSimRef, reset, vector_curl
+from fluidsimulation.solver.step2d import (
     SimState2D,
     init_state2d,
     step2d_jit,
@@ -50,11 +50,11 @@ def test_transfer2d_and_extrapolation_exact():
     Manhattan-bucket BFS, Simulation2D.cpp:443-581)."""
     import jax.numpy as jnp
 
-    from fluidsimulation_tpu.reference.solver2d import (
+    from fluidsimulation.reference.solver2d import (
         advect,
         transfer_particles_to_grid,
     )
-    from fluidsimulation_tpu.solver.step2d import extrapolate_full, transfer_to_grid
+    from fluidsimulation.solver.step2d import extrapolate_full, transfer_to_grid
 
     ref = FluidSimRef(CFG)
     pos = advect(CFG, ref.u, ref.v, ref.pos, 0.01)

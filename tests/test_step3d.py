@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import SimState, init_state
-from fluidsimulation_tpu.reference.solver3d import FluidSim3Ref, divergence_stats
-from fluidsimulation_tpu.solver.step3d import clamp_dt, pic_flip_alpha, step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import SimState, init_state
+from fluidsimulation.reference.solver3d import FluidSim3Ref, divergence_stats
+from fluidsimulation.solver.step3d import clamp_dt, pic_flip_alpha, step_jit
 
 CFG = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
 
@@ -53,7 +53,7 @@ def test_step_divergence_free():
     state = step_jit(state, 0.01, CFG)
     # phi in the state is blurred (render-only); recompute the sharp phi used
     # by the projection via the level-set op to evaluate the invariant.
-    from fluidsimulation_tpu.ops.levelset import compute_level_set
+    from fluidsimulation.ops.levelset import compute_level_set
 
     phi, _ = compute_level_set(CFG, state.pos)
     l2, mx, _ = divergence_stats(
@@ -97,7 +97,7 @@ def test_step_matches_cpu_oracle_one_step():
 
 
 def test_fast_slow_equivalence():
-    """The TPU-native fast path (packed interpolation + dense cell table)
+    """The fast path (packed interpolation + dense cell table)
     must agree with the direct gather/scatter path up to reassociation."""
     state = init_state(CFG)
     a = step_jit(state, 0.01, CFG, fast=True)
@@ -124,7 +124,7 @@ def test_jit_single_compilation_whole_step():
 def test_fast_slow_equivalence_supertable():
     """ppc_axis=1 routes the fast path through the supercell table
     (solver.step3d.use_super_table); it must agree with the direct path."""
-    from fluidsimulation_tpu.solver.step3d import use_super_table
+    from fluidsimulation.solver.step3d import use_super_table
 
     cfg = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0,
                     particles_per_cell_axis=1)
@@ -165,7 +165,7 @@ def test_cached_advect_bit_identical():
 
 def test_interp_packed_pair_bit_identical():
     """Fat-row pair interpolation == two separate packed interpolations."""
-    from fluidsimulation_tpu.core.interp_packed import (
+    from fluidsimulation.core.interp_packed import (
         interp_mac3_packed_pair_vec,
         interp_mac3_packed_vec,
         pack_mac3,
@@ -178,7 +178,7 @@ def test_interp_packed_pair_bit_identical():
     gb = [rng.normal(size=s).astype(np.float32)
           for s in ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))]
     q = rng.uniform(-0.2, 1.2, size=(500, 3)).astype(np.float32) * nx
-    from fluidsimulation_tpu.core.interp_packed import (
+    from fluidsimulation.core.interp_packed import (
         interp_mac3_packed_half_vec,
         pack_mac3_pair,
     )
@@ -200,10 +200,10 @@ def test_interp_packed_pair_bit_identical():
 
 def test_interp_packed_chunked_bit_identical(monkeypatch):
     """Giant-batch chunking (interp_packed._map_chunks, used for the 8M-
-    particle ppc2 config where the unchunked fat gather OOMs HBM) must
+    particle ppc2 config where the unchunked fat gather exhausts device memory) must
     match the unchunked program to ~1 ulp (the lax.map body fma-contracts
     slightly differently), including the padded tail."""
-    import fluidsimulation_tpu.core.interp_packed as ip
+    import fluidsimulation.core.interp_packed as ip
 
     rng = np.random.default_rng(7)
     nx = ny = nz = 16

@@ -5,12 +5,12 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.ops import celltable as ct
-from fluidsimulation_tpu.ops import levelset as ls
-from fluidsimulation_tpu.ops import p2g
-from fluidsimulation_tpu.ops import supertable as st
-from tests.test_celltable import CFG, _seeded
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.ops import celltable as ct
+from fluidsimulation.ops import levelset as ls
+from fluidsimulation.ops import p2g
+from fluidsimulation.ops import supertable as st
+from test_celltable import CFG, _seeded
 
 
 def test_super_build_counts():

@@ -6,9 +6,9 @@ import os
 
 import numpy as np
 
-from fluidsimulation_tpu.core.config import SimConfig, SimConfig2D
-from fluidsimulation_tpu.core.lcg import MinstdRand, minstd_uniform_stream
-from fluidsimulation_tpu.render.camera import OrbitCamera
+from fluidsimulation.core.config import SimConfig, SimConfig2D
+from fluidsimulation.core.lcg import MinstdRand, minstd_uniform_stream
+from fluidsimulation.render.camera import OrbitCamera
 
 GOLDEN_FRAME = os.path.join(os.path.dirname(__file__), "golden", "frame16_r1.npz")
 
@@ -62,7 +62,7 @@ def test_camera_frame_and_controls():
 
 
 def test_profiler_table_format():
-    from fluidsimulation_tpu.utils.profiling import MARKS, SHORT, StageProfiler
+    from fluidsimulation.utils.profiling import MARKS, SHORT, StageProfiler
 
     assert len(MARKS) == 23 == len(SHORT)  # GPUProfiler.h:16-44 mark count
     prof = StageProfiler()
@@ -79,9 +79,9 @@ def test_golden_rendered_frame():
 
     if not os.path.exists(GOLDEN_FRAME):
         pytest.skip("golden frame not generated")
-    from fluidsimulation_tpu.core.state import init_state
-    from fluidsimulation_tpu.render.raytrace import render
-    from fluidsimulation_tpu.solver.step3d import step_jit
+    from fluidsimulation.core.state import init_state
+    from fluidsimulation.render.raytrace import render
+    from fluidsimulation.solver.step3d import step_jit
 
     cfg = SimConfig(nx=16, ny=16, nz=16, cells_per_meter=16.0)
     state = step_jit(init_state(cfg), 0.01, cfg)

@@ -15,18 +15,18 @@ import numpy as np
 import pytest
 
 # Round 5: the wavefront renderer is a quarantined measured-dead
-# experiment (fluidsimulation_tpu/experiments/); its whole equality
+# experiment (fluidsimulation/experiments/); its whole equality
 # suite runs in the slow tier.
 pytestmark = pytest.mark.slow
 
 import jax.numpy as jnp
 
-from fluidsimulation_tpu.core.config import SimConfig
-from fluidsimulation_tpu.core.state import init_state
-from fluidsimulation_tpu.render import raytrace as rt
-from fluidsimulation_tpu.experiments import wavefront as wf
-from fluidsimulation_tpu.render.camera import OrbitCamera
-from fluidsimulation_tpu.solver.step3d import step_jit
+from fluidsimulation.core.config import SimConfig
+from fluidsimulation.core.state import init_state
+from fluidsimulation.render import raytrace as rt
+from fluidsimulation.experiments import wavefront as wf
+from fluidsimulation.render.camera import OrbitCamera
+from fluidsimulation.solver.step3d import step_jit
 
 CFG = SimConfig(nx=24, ny=24, nz=24, cells_per_meter=24.0)
 
